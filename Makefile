@@ -2,25 +2,28 @@
 
 PY ?= python
 
-.PHONY: test test-fast native ffi bench micro dryrun clean
+.PHONY: test test-fast native ffi bench smoke micro dryrun clean
 
 test:            ## full suite (CPU backend, 8-device virtual mesh)
-	$(PY) -m pytest tests/ -q
+	JAX_PLATFORMS=cpu $(PY) -m pytest tests/ -q
 
 test-fast:       ## suite minus the slow embedded-interpreter FFI test
 	$(PY) -m pytest tests/ -q --deselect tests/test_ffi.py
 
 native:          ## build the C++ ingest accelerator into the cache dir
-	$(PY) -c "from searchlite_tpu.native import get_lib; \
+	$(PY) -c "from searchlite.native import get_lib; \
 	          assert get_lib() is not None, 'toolchain missing'; \
 	          print('slt_ingest.so ok')"
 
-ffi:             ## build the C embedding ABI (libsearchlite_tpu.so)
-	$(PY) -c "from searchlite_tpu.native import build_ffi_lib; \
+ffi:             ## build the C embedding ABI (libsearchlite.so)
+	$(PY) -c "from searchlite.native import build_ffi_lib; \
 	          p = build_ffi_lib(); assert p, 'toolchain missing'; print(p)"
 
-bench:           ## headline benchmark (real device; one JSON line)
+bench:           ## headline benchmark (GPU only; one JSON line)
 	$(PY) bench.py
+
+smoke:           ## main path once on the GPU, every answer gated
+	$(PY) chip_smoke.py
 
 micro:           ## criterion-style micro scenarios
 	$(PY) benches/micro.py
@@ -30,5 +33,5 @@ dryrun:          ## compile-check entry + multi-chip sharding on CPU mesh
 	$(PY) __graft_entry__.py
 
 clean:
-	rm -rf ~/.cache/searchlite_tpu
+	rm -rf .jax_cache
 	find . -name __pycache__ -type d -exec rm -rf {} + 2>/dev/null || true

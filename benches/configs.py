@@ -1,4 +1,4 @@
-"""BASELINE config sweep timings (VERDICT r2 item 6): the reference's
+"""BASELINE config sweep timings: the reference's
 example workloads, run end-to-end and TIMED — one JSON line per
 scenario. Configs (BASELINE.md):
 
@@ -69,7 +69,7 @@ QUICKSTART_SCHEMA = {
 
 
 def config1_quickstart():
-    from searchlite_tpu import cli
+    from searchlite import cli
 
     with tempfile.TemporaryDirectory() as tmp:
         idx_dir = os.path.join(tmp, "idx")
@@ -109,9 +109,9 @@ def _mark_nested_nullable(props):
 
 
 def config2_recipes():
-    from searchlite_tpu.api.types import IndexOptions, StorageType
-    from searchlite_tpu.index import Index
-    from searchlite_tpu.index.manifest import Schema
+    from searchlite.api.types import IndexOptions, StorageType
+    from searchlite.index import Index
+    from searchlite.index.manifest import Schema
 
     schema = json.load(open(f"{REF}/examples/recipes/schema.json"))
     for nested in schema.get("nested_fields", []):
@@ -189,9 +189,9 @@ def _videogames_docs(n=4000, seed=17):
 
 
 def config3_videogames():
-    from searchlite_tpu.api.types import IndexOptions, StorageType
-    from searchlite_tpu.index import Index
-    from searchlite_tpu.index.manifest import Schema
+    from searchlite.api.types import IndexOptions, StorageType
+    from searchlite.index import Index
+    from searchlite.index.manifest import Schema
 
     schema = json.load(open(f"{REF}/examples/video-games/schema.json"))
     schema["keyword_fields"] = [

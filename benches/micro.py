@@ -19,14 +19,14 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from searchlite_tpu.utils.devguard import guard_backend  # noqa: E402
+from searchlite.utils.devguard import guard_backend  # noqa: E402
 
 guard_backend(__file__)
 
-from searchlite_tpu.api.types import IndexOptions, StorageType  # noqa: E402
-from searchlite_tpu.errors import QueryError  # noqa: E402
-from searchlite_tpu.index import Index  # noqa: E402
-from searchlite_tpu.index.manifest import Schema  # noqa: E402
+from searchlite.api.types import IndexOptions, StorageType  # noqa: E402
+from searchlite.errors import QueryError  # noqa: E402
+from searchlite.index import Index  # noqa: E402
+from searchlite.index.manifest import Schema  # noqa: E402
 
 SCHEMA = {
     "text_fields": [{"name": "body", "analyzer": "default", "stored": True,
@@ -219,7 +219,7 @@ def bench_search_pruned():
 
 def bench_vector_hybrid():
     """Vector-only + hybrid alpha-blend search over 10k 64-dim cosine
-    vectors (BASELINE config 5's shape; exact MXU similarity)."""
+    vectors (BASELINE config 5's shape; exact matmul similarity)."""
     import random
 
     rng = random.Random(17)

@@ -1,9 +1,9 @@
-// searchlite-tpu C embedding library.
+// searchlite C embedding library.
 //
 // Implements the 5-function C ABI of the reference's FFI crate
 // (`searchlite-ffi/src/lib.rs:20-195`) by embedding CPython and
-// delegating to `searchlite_tpu.embed` — so a C/C++/Go/anything host
-// gets the full TPU engine behind a plain shared library, no Python
+// delegating to `searchlite.embed` — so a C/C++/Go/anything host
+// gets the full engine behind a plain shared library, no Python
 // code on the host side.
 //
 // Interpreter ownership: if the process has no Python runtime yet we
@@ -16,12 +16,12 @@
 
 #include <mutex>
 
-#include "searchlite_tpu.h"
+#include "searchlite.h"
 
 namespace {
 
 std::once_flag g_init_once;
-PyObject* g_embed = nullptr;  // searchlite_tpu.embed module (owned ref)
+PyObject* g_embed = nullptr;  // searchlite.embed module (owned ref)
 
 void ensure_python() {
   std::call_once(g_init_once, [] {
@@ -38,7 +38,7 @@ void ensure_python() {
 // nullptr with the Python error cleared. Caller must hold the GIL.
 PyObject* embed_module() {
   if (g_embed == nullptr) {
-    g_embed = PyImport_ImportModule("searchlite_tpu.embed");
+    g_embed = PyImport_ImportModule("searchlite.embed");
     if (g_embed == nullptr) PyErr_Clear();
   }
   return g_embed;

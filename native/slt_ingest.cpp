@@ -1,4 +1,4 @@
-// searchlite-tpu native ingest accelerator.
+// searchlite native ingest accelerator.
 //
 // Replaces the hot host-side ingest loop (tokenize -> postings
 // accumulate; the reference's `index/segment.rs:655-698` +
@@ -18,8 +18,8 @@
 // postings stay doc-ascending. Output is deterministic for any thread
 // count: slt_finish sorts terms globally before export.
 //
-// Exported arrays mirror the TPU block layout of
-// `searchlite_tpu/index/postings.py` (128-wide doc/tf blocks, ragged
+// Exported arrays mirror the device block layout of
+// `searchlite/index/postings.py` (128-wide doc/tf blocks, ragged
 // CSR positions).
 //
 // Built with: g++ -O3 -shared -fPIC -pthread -std=c++17 slt_ingest.cpp

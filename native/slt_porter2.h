@@ -1,5 +1,5 @@
 // Porter2 (Snowball "english") stemmer — C++ port of
-// searchlite_tpu/analysis/porter2.py (itself implementing the published
+// searchlite/analysis/porter2.py (itself implementing the published
 // Snowball english algorithm with generated-runtime region semantics:
 // R1/R2 fixed as integer positions). ASCII-only: the native ingest path
 // rejects non-ASCII values before reaching this code.

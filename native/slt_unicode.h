@@ -1,7 +1,7 @@
 // Unicode analysis for the native ingest path: NFKC normalization,
 // full lowercase (incl. the Final_Sigma context rule, matching CPython
 // str.lower), and exact UAX#29 word segmentation — the C++ twin of the
-// `unicode` analyzer pipeline (searchlite_tpu/analysis/uax29.py +
+// `unicode` analyzer pipeline (searchlite/analysis/uax29.py +
 // tokenizers.py: nfkc -> unicode_words -> lowercase). All tables are
 // generated from the same UCD (tools/gen_unicode_cpp.py); equivalence
 // is fuzzed against the Python implementation in tests/test_native.py.

@@ -5,10 +5,10 @@ import math
 
 import pytest
 
-from searchlite_tpu.api.types import IndexOptions, StorageType
-from searchlite_tpu.errors import QueryError
-from searchlite_tpu.index import Index
-from searchlite_tpu.index.manifest import Schema
+from searchlite.api.types import IndexOptions, StorageType
+from searchlite.errors import QueryError
+from searchlite.index import Index
+from searchlite.index.manifest import Schema
 
 
 def make_index(docs, commits_per_doc=False):

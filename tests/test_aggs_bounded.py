@@ -10,10 +10,10 @@ collection paths (reference contracts: `query/aggs/mod.rs:466-596`,
 import numpy as np
 import pytest
 
-from searchlite_tpu.index.fastfields import FastFieldsWriter
-from searchlite_tpu.query import aggs as A
-from searchlite_tpu.query import datetime_util as dtu
-from searchlite_tpu.query import sketches
+from searchlite.index.fastfields import FastFieldsWriter
+from searchlite.query import aggs as A
+from searchlite.query import datetime_util as dtu
+from searchlite.query import sketches
 
 
 class FakeMeta:

@@ -4,20 +4,20 @@ Golden expectations mirror the reference's unit tests
 (searchlite-core `analysis/analyzer.rs:479-570`, `analysis/tokenizer.rs:61-90`).
 """
 
-from searchlite_tpu.analysis import porter2
-from searchlite_tpu.analysis.analyzer import (
+from searchlite.analysis import porter2
+from searchlite.analysis.analyzer import (
     Analyzer,
     AnalyzerRegistry,
     analyzer_from_def,
 )
-from searchlite_tpu.analysis.tokenizers import (
+from searchlite.analysis.tokenizers import (
     default_tokenize,
     unicode_tokenize,
     whitespace_tokenize,
 )
 import pytest
 
-from searchlite_tpu.errors import SchemaError
+from searchlite.errors import SchemaError
 
 
 def texts(tokens):

@@ -4,9 +4,9 @@ import random
 
 import pytest
 
-from searchlite_tpu.api.types import IndexOptions, StorageType
-from searchlite_tpu.index import Index
-from searchlite_tpu.index.manifest import Schema
+from searchlite.api.types import IndexOptions, StorageType
+from searchlite.index import Index
+from searchlite.index.manifest import Schema
 
 
 @pytest.fixture(scope="module")
@@ -71,7 +71,7 @@ def test_int32_overflow_routes_to_sharded(index, monkeypatch):
     corpora raised OverflowError from inside build_impact_batch before
     search_batch_many's budget check could route (caught by
     tools/bench_1m.py on hardware, 2026-08-16)."""
-    from searchlite_tpu.api import reader as reader_mod
+    from searchlite.api import reader as reader_mod
 
     rd = index.reader()
     queries = ["w1 w2", "w3", "w10 w20 w30"]
@@ -211,7 +211,7 @@ def test_dense_rows_selection(index):
     m = np.asarray(dense["m_dense"])
     assert (m[-1] == 0).all()
     # and a representative batch actually routes slots to dense rows
-    from searchlite_tpu.ops.impact import (
+    from searchlite.ops.impact import (
         build_impact_batch,
         split_impact_batch,
     )
@@ -230,7 +230,7 @@ def test_dense_rows_selection(index):
 def filtered_index():
     rng = random.Random(23)
     vocab = [f"w{i}" for i in range(40)]
-    from searchlite_tpu.index.manifest import Schema as _S
+    from searchlite.index.manifest import Schema as _S
     idx = Index.create(
         IndexOptions(path="", create_if_missing=True,
                      storage=StorageType.IN_MEMORY),
@@ -257,7 +257,7 @@ def filtered_index():
 
 
 def test_batch_per_query_filters_match_single_path(filtered_index):
-    """Structured batched queries (VERDICT item 5): per-query filters in
+    """Structured batched queries: per-query filters in
     search_batch must match the single-query path with the same
     `filter` (reference surface api/types.rs:395-520)."""
     reader = filtered_index.reader()
@@ -317,7 +317,7 @@ def test_batch_sharded_with_filters(filtered_index, monkeypatch):
 
 def test_batch_filter_validation(filtered_index):
     reader = filtered_index.reader()
-    from searchlite_tpu.errors import QueryError
+    from searchlite.errors import QueryError
     with pytest.raises(QueryError):
         reader.search_batch(["w1"], limit=5, filters=[
             {"KeywordEq": {"field": "rank", "value": "x"}}])
@@ -359,7 +359,7 @@ def test_fine_bucketing_block_tables():
     """build_block_tables pads to the {pow2, 0.75·pow2} ladder by
     default (every pad block = 128 wasted scatter updates); coarse
     keeps the pow-4 ladder for compile-sensitive callers."""
-    from searchlite_tpu.ops.impact import build_block_tables
+    from searchlite.ops.impact import build_block_tables
 
     # 40 blocks → pow2 64, then 48 (= 0.75*64) still fits
     blk, row, nb = build_block_tables([0], [40], sentinel_row=99)
@@ -370,7 +370,7 @@ def test_fine_bucketing_block_tables():
     # pads carry the sentinel row
     assert (blk[40:] == 99).all()
     # ladder shape: 0.75*pow2 chosen only when it fits
-    from searchlite_tpu.ops.impact import pow15_bucket
+    from searchlite.ops.impact import pow15_bucket
 
     assert pow15_bucket(40, minimum=32) == 48
     assert pow15_bucket(50, minimum=32) == 64
@@ -404,7 +404,7 @@ def test_output_arrays_matches_pairs(index):
 
 
 def test_output_arrays_rejections(index):
-    from searchlite_tpu.errors import QueryError
+    from searchlite.errors import QueryError
 
     reader = index.reader()
     with pytest.raises(QueryError):

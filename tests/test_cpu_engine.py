@@ -8,12 +8,12 @@ import random
 import numpy as np
 import pytest
 
-from searchlite_tpu.api.types import IndexOptions, StorageType
-from searchlite_tpu.index import Index
-from searchlite_tpu.index.manifest import Schema
+from searchlite.api.types import IndexOptions, StorageType
+from searchlite.index import Index
+from searchlite.index.manifest import Schema
 
 pytestmark = pytest.mark.skipif(
-    __import__("searchlite_tpu.native", fromlist=["build_cpu_engine_lib"]
+    __import__("searchlite.native", fromlist=["build_cpu_engine_lib"]
                ).build_cpu_engine_lib() is None,
     reason="no C++ toolchain")
 
@@ -42,7 +42,7 @@ def index():
 
 
 def test_cpu_engine_matches_reader_all_modes(index):
-    from searchlite_tpu.native import CpuEngine
+    from searchlite.native import CpuEngine
 
     rng = random.Random(78)
     reader = index.reader()
@@ -69,7 +69,7 @@ def test_cpu_engine_matches_reader_all_modes(index):
 
 def test_cpu_engine_ties_resolve_doc_asc(index):
     """Duplicate docs produce exact score ties; order must be doc asc."""
-    from searchlite_tpu.native import CpuEngine
+    from searchlite.native import CpuEngine
 
     idx = Index.create(
         IndexOptions(path="", create_if_missing=True,

@@ -14,9 +14,9 @@ import random
 
 import pytest
 
-from searchlite_tpu.api.types import IndexOptions, StorageType
-from searchlite_tpu.index import Index
-from searchlite_tpu.index.manifest import Schema
+from searchlite.api.types import IndexOptions, StorageType
+from searchlite.index import Index
+from searchlite.index.manifest import Schema
 
 DAYS = ["2024-01-0%dT0%d:00:00Z" % (d, h)
         for d in range(1, 8) for h in range(0, 6)]
@@ -203,7 +203,7 @@ def test_device_subagg_metrics_match_host(index, query, monkeypatch):
 def test_widened_specs_engage_device_plan(index):
     """Every WIDE_AGGS/SUB_AGGS spec must actually plan device-side —
     otherwise the parity tests above silently compare host to host."""
-    from searchlite_tpu.ops.device_aggs import plan_device_aggs
+    from searchlite.ops.device_aggs import plan_device_aggs
 
     reader = index.reader()
     dseg = reader.device_segments[0]
@@ -215,7 +215,7 @@ def test_widened_specs_engage_device_plan(index):
 def test_nonroundtrip_floats_fall_back(index):
     """price holds 2-decimal floats that don't round-trip f32 → stats
     device min/max would be inexact → the plan must refuse."""
-    from searchlite_tpu.ops.device_aggs import plan_device_aggs
+    from searchlite.ops.device_aggs import plan_device_aggs
 
     reader = index.reader()
     dseg = reader.device_segments[0]
@@ -230,7 +230,7 @@ def test_nonroundtrip_floats_fall_back(index):
 
 
 def test_strict_mode_keeps_stats_on_host(index):
-    from searchlite_tpu.ops.device_aggs import plan_device_aggs
+    from searchlite.ops.device_aggs import plan_device_aggs
 
     reader = index.reader()
     dseg = reader.device_segments[0]
@@ -250,7 +250,7 @@ def test_strict_mode_keeps_stats_on_host(index):
 
 def test_vcap_exceeded_falls_back(index, monkeypatch):
     """A doc with more distinct buckets than the V cap forces host."""
-    from searchlite_tpu.ops.device_aggs import plan_device_aggs
+    from searchlite.ops.device_aggs import plan_device_aggs
 
     monkeypatch.setenv("SEARCHLITE_DEVICE_AGG_VCAP", "1")
     reader = index.reader()

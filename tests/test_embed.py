@@ -2,7 +2,7 @@
 
 import json
 
-from searchlite_tpu import embed
+from searchlite import embed
 
 
 def test_ffi_style_roundtrip(tmp_path):

@@ -1,5 +1,5 @@
 """Acceptance tests against the reference's example suites
-(BASELINE.json configs 1-3): docs.jsonl quickstart flow and the
+(acceptance configs 1-3): docs.jsonl quickstart flow and the
 recipes/video-games canned request JSONs."""
 
 import json
@@ -7,9 +7,9 @@ import os
 
 import pytest
 
-from searchlite_tpu.api.types import IndexOptions, StorageType
-from searchlite_tpu.index import Index
-from searchlite_tpu.index.manifest import Schema
+from searchlite.api.types import IndexOptions, StorageType
+from searchlite.index import Index
+from searchlite.index.manifest import Schema
 
 REF = "/root/reference"
 
@@ -147,7 +147,7 @@ class TestVideoGamesQueries:
         writer.commit()
         reader = index.reader()
         qdir = f"{REF}/examples/video-games/queries"
-        from searchlite_tpu.api.types import SearchRequest
+        from searchlite.api.types import SearchRequest
 
         parsed = 0
         for name in sorted(os.listdir(qdir)):

@@ -8,10 +8,10 @@ import random
 import numpy as np
 import pytest
 
-from searchlite_tpu.api.types import IndexOptions, StorageType
-from searchlite_tpu.errors import SearchliteError
-from searchlite_tpu.index import Index
-from searchlite_tpu.index.manifest import Schema
+from searchlite.api.types import IndexOptions, StorageType
+from searchlite.errors import SearchliteError
+from searchlite.index import Index
+from searchlite.index.manifest import Schema
 
 VOCAB = [f"w{i}" for i in range(40)] + ["café", "naïve"]
 TAGS = ["a", "b", "c", None]
@@ -259,7 +259,7 @@ def test_fuzz_aggs_match_naive_oracle(index):
         out = reader.search(request)
         aggs = out.aggregations
 
-        from searchlite_tpu.query.filters import compute_filters_mask
+        from searchlite.query.filters import compute_filters_mask
         matched_ids = set()
         for seg in reader.segments:
             mask = compute_filters_mask(
@@ -298,7 +298,7 @@ def test_fuzz_aggs_match_naive_oracle(index):
 
 
 def _filter_obj(flt):
-    from searchlite_tpu.api.types import Filter
+    from searchlite.api.types import Filter
     return Filter.from_json(flt)
 
 
@@ -387,7 +387,7 @@ def test_fuzz_phrase_slop_matches_naive_oracle():
     """Phrase matching with slop vs a brute-force oracle over token
     positions (reference semantics: recursive ordered match where each
     next term may sit up to `slop` positions past the previous match)."""
-    from searchlite_tpu.query.phrase import matches_phrase
+    from searchlite.query.phrase import matches_phrase
 
     rng = random.Random(17)
     vocab = ["p", "q", "r", "s"]

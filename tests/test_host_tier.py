@@ -21,11 +21,11 @@ import random
 import numpy as np
 import pytest
 
-import searchlite_tpu.api.reader as reader_mod
-from searchlite_tpu.api.types import IndexOptions, StorageType
-from searchlite_tpu.index import Index
-from searchlite_tpu.index.manifest import Schema
-from searchlite_tpu.parallel.mesh import make_mesh
+import searchlite.api.reader as reader_mod
+from searchlite.api.types import IndexOptions, StorageType
+from searchlite.index import Index
+from searchlite.index.manifest import Schema
+from searchlite.parallel.mesh import make_mesh
 from tests.test_sparse_batch import (
     assert_same,
     build_index,

@@ -1,9 +1,8 @@
 """Device impact-storage dtype (ops/precision.py::impacts_store_dtype).
 
 On accelerators the device copies of posting impacts store bf16 in the
-fast precision modes (divergence D8): the fast-f32 matmul rounds M's
-entries to bf16 anyway, so dense-path scores are unchanged on TPU,
-while upload/HBM/gather traffic halve. These tests force the bf16
+fast precision modes (divergence D8): upload, device memory and gather
+traffic halve, at bf16 rounding of each stored impact. These tests force the bf16
 layout on the CPU backend and pin (a) results within the D8 tolerance
 of the f32 run across the dense, sparse, pruned, and sharded paths,
 and (b) internal consistency between execution paths under the SAME
@@ -12,9 +11,9 @@ storage."""
 import numpy as np
 import pytest
 
-from searchlite_tpu.api.types import IndexOptions, StorageType
-from searchlite_tpu.index import Index
-from searchlite_tpu.index.manifest import Schema
+from searchlite.api.types import IndexOptions, StorageType
+from searchlite.index import Index
+from searchlite.index.manifest import Schema
 
 VOCAB = [f"w{i}" for i in range(100)]
 RTOL = 2 ** -7  # bf16 mantissa step with headroom
@@ -111,6 +110,6 @@ def test_strict_mode_keeps_f32(monkeypatch):
     monkeypatch.setenv("SEARCHLITE_DEVICE_IMPACTS", "bf16")
     import jax.numpy as jnp
 
-    from searchlite_tpu.ops.precision import impacts_store_dtype
+    from searchlite.ops.precision import impacts_store_dtype
 
     assert impacts_store_dtype() == jnp.float32

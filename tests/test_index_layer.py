@@ -10,15 +10,15 @@ import json
 import numpy as np
 import pytest
 
-from searchlite_tpu.api.types import IndexOptions, StorageType
-from searchlite_tpu.api.writer import IndexWriter
-from searchlite_tpu.errors import SchemaError, StorageError
-from searchlite_tpu.index import Index
-from searchlite_tpu.index.manifest import Manifest, Schema, SegmentMeta
-from searchlite_tpu.index.postings import BLOCK, InvertedIndexBuilder
-from searchlite_tpu.index.segment import SegmentReader, SegmentWriter
-from searchlite_tpu.index.wal import ADD_DOC, COMMIT, DELETE_DOC_ID, Wal
-from searchlite_tpu.storage import InMemoryStorage
+from searchlite.api.types import IndexOptions, StorageType
+from searchlite.api.writer import IndexWriter
+from searchlite.errors import SchemaError, StorageError
+from searchlite.index import Index
+from searchlite.index.manifest import Manifest, Schema, SegmentMeta
+from searchlite.index.postings import BLOCK, InvertedIndexBuilder
+from searchlite.index.segment import SegmentReader, SegmentWriter
+from searchlite.index.wal import ADD_DOC, COMMIT, DELETE_DOC_ID, Wal
+from searchlite.storage import InMemoryStorage
 
 
 def mem_options(**kw):

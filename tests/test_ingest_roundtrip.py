@@ -13,9 +13,9 @@ import random
 import numpy as np
 import pytest
 
-from searchlite_tpu.api.types import IndexOptions, StorageType
-from searchlite_tpu.index import Index
-from searchlite_tpu.index.manifest import Schema
+from searchlite.api.types import IndexOptions, StorageType
+from searchlite.index import Index
+from searchlite.index.manifest import Schema
 
 SCHEMA = {
     "analyzers": [
@@ -182,7 +182,7 @@ def test_compact_refuses_unstored_fast_field(corpus):
     rewrite would lose the column; `index/mod.rs:202-212` parity).
     Compaction success round-trips are covered in test_index_layer."""
     idx, _docs, _deleted = corpus
-    from searchlite_tpu.errors import SchemaError
+    from searchlite.errors import SchemaError
 
     with pytest.raises(SchemaError):
         idx.compact()
@@ -284,7 +284,7 @@ class TestColumnarEquivalence:
     def test_columnar_path_engages(self, monkeypatch):
         """Sanity: the fast path actually runs for the flat schema
         (guards against silent gate regressions)."""
-        from searchlite_tpu.index import segment as seg_mod
+        from searchlite.index import segment as seg_mod
 
         calls = []
         orig = seg_mod.SegmentWriter._ingest_columnar
@@ -330,7 +330,7 @@ class TestBulkValidateEquivalence:
         ({"body": "missing id"}, 4),
     ])
     def test_bad_doc_raises_same_error(self, bad, pos):
-        from searchlite_tpu.errors import SchemaError
+        from searchlite.errors import SchemaError
 
         schema = self._schema()
         docs = [{"_id": f"g{i}", "body": "ok", "year": 2001}
@@ -349,7 +349,7 @@ class TestBulkValidateEquivalence:
         assert msg is not None and str(e_bulk.value) == msg
 
     def test_nullable_and_none(self):
-        from searchlite_tpu.errors import SchemaError
+        from searchlite.errors import SchemaError
 
         schema = Schema.from_json({
             "text_fields": [{"name": "body", "analyzer": "default",

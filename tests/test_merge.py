@@ -12,10 +12,10 @@ same order produces.
 import numpy as np
 import pytest
 
-from searchlite_tpu.api.types import IndexOptions, StorageType
-from searchlite_tpu.errors import SchemaError
-from searchlite_tpu.index import Index
-from searchlite_tpu.index.manifest import Schema
+from searchlite.api.types import IndexOptions, StorageType
+from searchlite.errors import SchemaError
+from searchlite.index import Index
+from searchlite.index.manifest import Schema
 
 SCHEMA = {
     "text_fields": [{"name": "body", "analyzer": "default",
@@ -327,7 +327,7 @@ def test_reader_retries_when_merge_swaps_segments(monkeypatch):
     files between reader() snapshotting and the per-segment opens
     (found live by tools/bench_realtime.py). The reader must
     re-snapshot and retry, not raise."""
-    import searchlite_tpu.api.reader as reader_mod
+    import searchlite.api.reader as reader_mod
 
     docs = make_docs(120, seed=37)
     idx = build(docs, [60, 60])
@@ -341,7 +341,7 @@ def test_reader_retries_when_merge_swaps_segments(monkeypatch):
             # simulate: files of the snapshot's segment were deleted
             # by a merge that already swapped the live manifest
             idx.merge_segments()
-            from searchlite_tpu.errors import StorageError
+            from searchlite.errors import StorageError
 
             raise StorageError(f"file not found: seg_{meta.id}.terms")
         return orig(storage, meta, ordinal, k1, b)
@@ -358,7 +358,7 @@ def test_auto_merge_async():
     """Background folds: commits return without paying the merge;
     wait_for_background_merges() drains, results match the sync policy
     (segment count collapses, all docs searchable)."""
-    from searchlite_tpu.api.writer import wait_for_background_merges
+    from searchlite.api.writer import wait_for_background_merges
 
     docs = make_docs(120, seed=41)
     idx = build(docs, [20, 20, 20, 20, 20, 20],
@@ -390,7 +390,7 @@ def test_tombstone_clone_shares_structures():
     """A delete-only commit must CLONE the cached segment (shared
     immutable arrays + uploads, fresh deletion-derived state), not
     rebuild it — and results must equal a cold-cache rebuild."""
-    import searchlite_tpu.api.reader as reader_mod
+    import searchlite.api.reader as reader_mod
 
     docs = make_docs(300, seed=43)
     idx = build(docs, [300])

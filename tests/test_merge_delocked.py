@@ -16,9 +16,9 @@ Contracts tested:
 
 import numpy as np
 
-from searchlite_tpu.api.types import IndexOptions, StorageType
-from searchlite_tpu.index import Index, _carry_late_tombstones
-from searchlite_tpu.index.manifest import Schema
+from searchlite.api.types import IndexOptions, StorageType
+from searchlite.index import Index, _carry_late_tombstones
+from searchlite.index.manifest import Schema
 
 SCHEMA = {
     "text_fields": [{"name": "body", "analyzer": "default",

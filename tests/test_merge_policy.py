@@ -17,13 +17,13 @@ the SELECTION policy and backpressure.
 
 import numpy as np
 
-from searchlite_tpu.api.types import IndexOptions, StorageType
-from searchlite_tpu.api.writer import (
+from searchlite.api.types import IndexOptions, StorageType
+from searchlite.api.writer import (
     _select_merge_tier,
     wait_for_background_merges,
 )
-from searchlite_tpu.index import Index
-from searchlite_tpu.index.manifest import Schema
+from searchlite.index import Index
+from searchlite.index.manifest import Schema
 
 SCHEMA = {
     "text_fields": [{"name": "body", "analyzer": "default",

@@ -1,7 +1,7 @@
 """Warm-before-swap on structural merge (Index._warm_fold).
 
-The realtime finding it fixes (tools/bench_realtime.py --device,
-BENCH_NOTES round-4): a fold graduating past the host tier paid its
+The realtime finding it fixes (tools/bench_realtime.py --device): a
+fold graduating past the host tier paid its
 device upload + XLA bucket compile inside whichever SEARCH touched it
 first (multi-second stalls). The merge thread now opens, places, and
 searches the fold BEFORE the manifest swap, while readers still serve
@@ -16,10 +16,10 @@ results or breaks merges on term-free / analyzer-mangling schemas.
 import numpy as np
 import pytest
 
-from searchlite_tpu.api import reader as reader_mod
-from searchlite_tpu.api.types import IndexOptions, StorageType
-from searchlite_tpu.index import Index
-from searchlite_tpu.index.manifest import Schema
+from searchlite.api import reader as reader_mod
+from searchlite.api.types import IndexOptions, StorageType
+from searchlite.index import Index
+from searchlite.index.manifest import Schema
 
 SCHEMA = {
     "text_fields": [{"name": "body", "analyzer": "default",

@@ -1,9 +1,8 @@
 """Batched search doc-sharded over a device mesh
-(``search_batch_many(mesh=)``): the flagship batched workload — the
-BASELINE "≥10× batched QPS on a v5e-8" target's execution shape — must
+(``search_batch_many(mesh=)``): the flagship batched workload must
 return exactly the single-chip batch API's results. Light rows ride the
 sharded packed candidate scorer (parallel/query.py::
-make_sharded_batch_scorer, local strips + ICI top-k merge); the heavy
+make_sharded_batch_scorer, local strips + collective top-k merge); the heavy
 remainder runs the single-chip dense scorers; rows stitch back into
 batch order on host. Reference batched contract: one-query-at-a-time
 loop over `query/wand.rs:459-566` with the (score desc, doc asc) merge.
@@ -14,7 +13,7 @@ import random
 import numpy as np
 import pytest
 
-from searchlite_tpu.parallel.mesh import make_mesh
+from searchlite.parallel.mesh import make_mesh
 from tests.test_sparse_batch import (
     VOCAB,
     assert_same,
@@ -150,9 +149,9 @@ def test_mesh_smaller_than_eight(index, monkeypatch):
 
 
 def test_mesh_empty_index(mesh):
-    from searchlite_tpu.api.types import IndexOptions, StorageType
-    from searchlite_tpu.index import Index
-    from searchlite_tpu.index.manifest import Schema
+    from searchlite.api.types import IndexOptions, StorageType
+    from searchlite.index import Index
+    from searchlite.index.manifest import Schema
 
     idx = Index.create(
         IndexOptions(path="", create_if_missing=True,

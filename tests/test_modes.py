@@ -4,10 +4,10 @@ analyzers end-to-end."""
 
 import pytest
 
-from searchlite_tpu.api.types import IndexOptions, StorageType
-from searchlite_tpu.index import Index
-from searchlite_tpu.index.manifest import Schema
-from searchlite_tpu.models.bm25 import bm25
+from searchlite.api.types import IndexOptions, StorageType
+from searchlite.index import Index
+from searchlite.index.manifest import Schema
+from searchlite.models.bm25 import bm25
 
 
 def make_index(schema_json, docs, **opts):
@@ -53,7 +53,7 @@ class TestReturnHits:
         assert res.aggregations["s"]["count"] == 2
 
     def test_cursor_with_return_hits_false_rejected(self):
-        from searchlite_tpu.errors import QueryError
+        from searchlite.errors import QueryError
 
         index = make_index(BASIC_SCHEMA, BASIC_DOCS)
         with pytest.raises(QueryError):
@@ -93,7 +93,7 @@ class TestDocstoreCompression:
         import json as _json
         import zlib as _zlib
 
-        from searchlite_tpu.index.docstore import DocStoreReader
+        from searchlite.index.docstore import DocStoreReader
 
         payload = _json.dumps({"body": "legacy"}).encode()
         data = _zlib.compress(payload)

@@ -6,12 +6,12 @@ import random
 import numpy as np
 import pytest
 
-from searchlite_tpu.analysis.analyzer import Analyzer
-from searchlite_tpu.index.postings import InvertedIndexBuilder
+from searchlite.analysis.analyzer import Analyzer
+from searchlite.index.postings import InvertedIndexBuilder
 
 
 def native_available():
-    from searchlite_tpu.native import get_lib
+    from searchlite.native import get_lib
 
     return get_lib() is not None
 
@@ -21,7 +21,7 @@ pytestmark = pytest.mark.skipif(not native_available(),
 
 
 def test_native_matches_python_builder():
-    from searchlite_tpu.native import NativeIndexBuilder
+    from searchlite.native import NativeIndexBuilder
 
     rng = random.Random(11)
     analyzer = Analyzer("default")
@@ -50,7 +50,7 @@ def test_bulk_sharded_builder_deterministic(monkeypatch):
     the sandbox often has 1 CPU, so the threaded path is forced here."""
     import numpy as np
 
-    from searchlite_tpu.native import NativeIndexBuilder
+    from searchlite.native import NativeIndexBuilder
 
     rng = random.Random(23)
     words = ["Apple", "beta-42", "Gamma", "CAFE", "zz9", "a1b2", "the"]
@@ -92,7 +92,7 @@ def test_bulk_sharded_builder_deterministic(monkeypatch):
 
 
 def test_non_ascii_rejected_without_side_effects():
-    from searchlite_tpu.native import NativeIndexBuilder
+    from searchlite.native import NativeIndexBuilder
 
     nb = NativeIndexBuilder(True)
     assert nb.add_text("body", 0, "café au lait", 0) is None
@@ -102,8 +102,8 @@ def test_non_ascii_rejected_without_side_effects():
 
 
 def test_native_stemmer_matches_python():
-    from searchlite_tpu.analysis import porter2
-    from searchlite_tpu.native import native_stem
+    from searchlite.analysis import porter2
+    from searchlite.native import native_stem
 
     words = ("running flies happily quantization nationalization "
              "agreed controlled hopping sized authorization news "
@@ -117,10 +117,10 @@ def test_english_analyzer_native_matches_python(monkeypatch):
     path must index identically to the Python analyzer."""
     import numpy as np
 
-    from searchlite_tpu.api.types import IndexOptions, StorageType
-    from searchlite_tpu.index import Index
-    from searchlite_tpu.index.manifest import Schema
-    import searchlite_tpu.native as natmod
+    from searchlite.api.types import IndexOptions, StorageType
+    from searchlite.index import Index
+    from searchlite.index.manifest import Schema
+    import searchlite.native as natmod
 
     schema = {
         "analyzers": [{
@@ -176,10 +176,10 @@ def test_english_analyzer_native_matches_python(monkeypatch):
 def test_segment_writer_same_output_with_and_without_native(monkeypatch):
     """Indexes built with and without the native path search identically,
     including mixed ASCII/Unicode documents."""
-    from searchlite_tpu.api.types import IndexOptions, StorageType
-    from searchlite_tpu.index import Index
-    from searchlite_tpu.index.manifest import Schema
-    import searchlite_tpu.native as natmod
+    from searchlite.api.types import IndexOptions, StorageType
+    from searchlite.index import Index
+    from searchlite.index.manifest import Schema
+    import searchlite.native as natmod
 
     docs = [
         {"_id": "1", "body": "plain ascii words here"},
@@ -226,8 +226,8 @@ def test_native_stemmer_fuzz_matches_python():
     """Property fuzz: the C++ Porter2 must agree with the Python
     implementation on arbitrary lowercase ASCII tokens (the only input
     the default tokenizer can feed it)."""
-    from searchlite_tpu.analysis import porter2
-    from searchlite_tpu.native import native_stem
+    from searchlite.analysis import porter2
+    from searchlite.native import native_stem
 
     rng = random.Random(1234)
     alphabet = "abcdefghijklmnopqrstuvwxyz"
@@ -244,7 +244,7 @@ def test_native_tokenizer_fuzz_arbitrary_ascii():
     """Arbitrary printable-ASCII values must index byte-identically
     through the native and Python paths (punctuation, digits, case,
     repeated separators, empty tokens)."""
-    from searchlite_tpu.native import NativeIndexBuilder
+    from searchlite.native import NativeIndexBuilder
 
     rng = random.Random(77)
     chars = ("abcdefgh XYZ 0123 !@#$%^&*()-_=+[]{};:'\",.<>/?\\|`~\t\n"
@@ -270,10 +270,10 @@ def test_native_english_chain_fuzz(monkeypatch):
     native vs Python must produce identical segments (exercises
     position resequencing over dropped tokens, all-stopword values,
     cross-value offsets)."""
-    from searchlite_tpu.api.types import IndexOptions, StorageType
-    from searchlite_tpu.index import Index
-    from searchlite_tpu.index.manifest import Schema
-    import searchlite_tpu.native as natmod
+    from searchlite.api.types import IndexOptions, StorageType
+    from searchlite.index import Index
+    from searchlite.index.manifest import Schema
+    import searchlite.native as natmod
 
     rng = random.Random(5)
     stop_heavy = ("the and of to in is was for with running quickly "
@@ -333,7 +333,7 @@ class TestNativeUnicode:
     byte-identical."""
 
     def _stream_native(self, texts, stopwords=None):
-        from searchlite_tpu.native import NativeIndexBuilder
+        from searchlite.native import NativeIndexBuilder
 
         nb = NativeIndexBuilder(True)
         if stopwords is not None:
@@ -348,7 +348,7 @@ class TestNativeUnicode:
     def _stream_python(self, texts, stopwords=None):
         descriptors = ([("stopwords", frozenset(stopwords))]
                        if stopwords is not None else [])
-        from searchlite_tpu.analysis.analyzer import AnalyzerRegistry
+        from searchlite.analysis.analyzer import AnalyzerRegistry
 
         if stopwords is None:
             analyzer = Analyzer("unicode")
@@ -412,9 +412,9 @@ class TestNativeUnicode:
     def test_segment_writer_unicode_native_matches_python(self, monkeypatch):
         import random as _r
 
-        from searchlite_tpu.index.manifest import Schema
-        from searchlite_tpu.index.segment import SegmentWriter
-        from searchlite_tpu.storage import InMemoryStorage
+        from searchlite.index.manifest import Schema
+        from searchlite.index.segment import SegmentWriter
+        from searchlite.storage import InMemoryStorage
 
         rng = _r.Random(5)
         schema = Schema.from_json({
@@ -434,14 +434,14 @@ class TestNativeUnicode:
             else:
                 monkeypatch.delenv("SEARCHLITE_DISABLE_NATIVE",
                                    raising=False)
-            import searchlite_tpu.native as native_mod
+            import searchlite.native as native_mod
             monkeypatch.setattr(native_mod, "_LIB_FAILED", False)
             storage = InMemoryStorage()
             writer = SegmentWriter(schema, storage)
             meta = writer.write_segment(iter(docs), generation=1)
             return storage, meta
 
-        from searchlite_tpu.index.segment import SegmentReader
+        from searchlite.index.segment import SegmentReader
         sa, ma = write(False)
         sb, mb = write(True)
         ra = SegmentReader(ma, sa)
@@ -463,9 +463,9 @@ def test_native_impacts_bit_identical_to_numpy():
 
     import numpy as np
 
-    from searchlite_tpu.api.types import IndexOptions, StorageType
-    from searchlite_tpu.index import Index
-    from searchlite_tpu.index.manifest import Schema
+    from searchlite.api.types import IndexOptions, StorageType
+    from searchlite.index import Index
+    from searchlite.index.manifest import Schema
 
     rng = random.Random(42)
     nrng = np.random.default_rng(42)

@@ -15,12 +15,12 @@ import random
 import numpy as np
 import pytest
 
-from searchlite_tpu.api.types import IndexOptions, StorageType
-from searchlite_tpu.index import Index
-from searchlite_tpu.index.manifest import Schema
+from searchlite.api.types import IndexOptions, StorageType
+from searchlite.index import Index
+from searchlite.index.manifest import Schema
 
 pytestmark = pytest.mark.skipif(
-    __import__("searchlite_tpu.native", fromlist=["get_lib"]).get_lib()
+    __import__("searchlite.native", fromlist=["get_lib"]).get_lib()
     is None, reason="native toolchain unavailable")
 
 
@@ -49,7 +49,7 @@ def qb_rows(qb):
 
 
 def assert_qb_equiv(seg, dseg, reader, queries, fields):
-    from searchlite_tpu.ops.impact import (
+    from searchlite.ops.impact import (
         build_impact_batch,
         build_impact_batch_native,
     )
@@ -121,7 +121,7 @@ def test_equiv_default_analyzer(default_index):
 
 
 def test_native_rejects_special_syntax(default_index):
-    from searchlite_tpu.ops.impact import build_impact_batch_native
+    from searchlite.ops.impact import build_impact_batch_native
 
     reader = default_index.reader()
     dseg = reader.device_segments[0]

@@ -33,7 +33,7 @@ class TestBatchedKernel:
     def test_batched_matches_scalar(self):
         import jax.numpy as jnp
 
-        from searchlite_tpu.ops.batch import make_batched_scorer
+        from searchlite.ops.batch import make_batched_scorer
 
         idx = graft._synthetic_index(n_docs=300, n_terms=20, seed=3)
         qs = graft._query_batch(idx, batch=4, terms_per_query=3, seed=5)
@@ -76,7 +76,7 @@ class TestBatchedKernel:
 
 
 class TestShardedFullQuery:
-    """Multi-chip execution beyond plain BM25 (VERDICT item 4): the full
+    """Multi-chip execution beyond plain BM25: the full
     request surface over a doc-sharded mesh must be identical to
     single-chip execution."""
 
@@ -84,10 +84,10 @@ class TestShardedFullQuery:
     def setup(self):
         import random
 
-        from searchlite_tpu.api.types import IndexOptions, StorageType
-        from searchlite_tpu.index import Index
-        from searchlite_tpu.index.manifest import Schema
-        from searchlite_tpu.parallel.mesh import make_mesh
+        from searchlite.api.types import IndexOptions, StorageType
+        from searchlite.index import Index
+        from searchlite.index.manifest import Schema
+        from searchlite.parallel.mesh import make_mesh
 
         rng = random.Random(31)
         vocab = [f"w{i}" for i in range(50)]
@@ -192,11 +192,11 @@ class TestShardedFullQuery:
         assert pages_a == pages_b
 
     def test_device_side_terms_agg_partials(self, setup):
-        """ICI merge of terms-agg intermediates: per-chip bincount psum
+        """Mesh merge of terms-agg intermediates: per-chip bincount psum
         equals the host collector's counts."""
         import numpy as np
 
-        from searchlite_tpu.parallel.query import (
+        from searchlite.parallel.query import (
             make_sharded_terms_counts,
             pad_doc_axis,
         )
@@ -245,16 +245,16 @@ class TestShardedFullQuery:
 
 class TestShardedVectors:
     """Vector and hybrid search across the mesh — identical to
-    single-chip (completes VERDICT item 4's feature coverage)."""
+    single-chip."""
 
     @pytest.fixture(scope="class")
     def setup(self):
         import random
 
-        from searchlite_tpu.api.types import IndexOptions, StorageType
-        from searchlite_tpu.index import Index
-        from searchlite_tpu.index.manifest import Schema
-        from searchlite_tpu.parallel.mesh import make_mesh
+        from searchlite.api.types import IndexOptions, StorageType
+        from searchlite.index import Index
+        from searchlite.index.manifest import Schema
+        from searchlite.parallel.mesh import make_mesh
 
         rng = random.Random(47)
         idx = Index.create(
@@ -317,16 +317,16 @@ class TestShardedVectors:
 class TestShardedAggPartials:
     """Generalized device-side agg partials over the mesh: stats and
     range merge with psum/pmin/pmax; counts with the one-hot
-    contraction (no colliding scatter — it serializes on TPU)."""
+    contraction (no colliding scatter)."""
 
     @pytest.fixture(scope="class")
     def setup(self):
         import random
 
-        from searchlite_tpu.api.types import IndexOptions, StorageType
-        from searchlite_tpu.index import Index
-        from searchlite_tpu.index.manifest import Schema
-        from searchlite_tpu.parallel.mesh import make_mesh
+        from searchlite.api.types import IndexOptions, StorageType
+        from searchlite.index import Index
+        from searchlite.index.manifest import Schema
+        from searchlite.parallel.mesh import make_mesh
 
         rng = random.Random(61)
         idx = Index.create(
@@ -347,7 +347,7 @@ class TestShardedAggPartials:
     def test_sharded_stats_and_range_partials(self, setup):
         import numpy as np
 
-        from searchlite_tpu.parallel.query import (
+        from searchlite.parallel.query import (
             make_sharded_range_counts,
             make_sharded_stats_partial,
             pad_doc_axis,

@@ -13,9 +13,9 @@ import random
 
 import pytest
 
-from searchlite_tpu.api.types import IndexOptions, StorageType
-from searchlite_tpu.index import Index
-from searchlite_tpu.index.manifest import Schema
+from searchlite.api.types import IndexOptions, StorageType
+from searchlite.index import Index
+from searchlite.index.manifest import Schema
 
 
 def _build_index(seed: int, segments: int = 3, docs_per_segment: int = 400,
@@ -131,7 +131,7 @@ def test_batch_pruned_rejects_unknown_execution():
     idx, _vocab, _rng = _build_index(5, segments=1, docs_per_segment=50,
                                      delete=0)
     reader = idx.reader()
-    from searchlite_tpu.errors import QueryError
+    from searchlite.errors import QueryError
     with pytest.raises(QueryError):
         reader.search_batch(["w1"], limit=5, execution="turbo")
 
@@ -259,7 +259,7 @@ def test_tile_index_tables_match_bruteforce():
     recomputation from the flat postings."""
     import numpy as np
 
-    from searchlite_tpu.ops.tiles import TileIndex
+    from searchlite.ops.tiles import TileIndex
 
     idx, vocab, rng = _build_index(57, segments=1, docs_per_segment=700,
                                    delete=0)
@@ -298,7 +298,7 @@ def test_tile_index_tables_match_bruteforce():
     sel_tiles = np.unique(np.asarray(
         rng.sample(range(tl.n_tiles), k=max(1, tl.n_tiles // 3))))
     runs = tl.run_tables(tids, sel_tiles)
-    from searchlite_tpu.ops.tiles import unpack_runs_np
+    from searchlite.ops.tiles import unpack_runs_np
 
     run_start, run_len, run_slot, run_off = unpack_runs_np(
         runs["packed"], runs["packed_fmt"])
@@ -339,7 +339,7 @@ def test_wave_launch_oom_evicts_and_retries(monkeypatch):
     """A RESOURCE_EXHAUSTED wave launch evicts rebuildable device
     caches and retries; results stay exact (regression: 5M-doc bmw run,
     2026-08-16, OOMed after the bm25 doc-shard pass filled HBM)."""
-    import searchlite_tpu.api.reader as reader_mod
+    import searchlite.api.reader as reader_mod
 
     monkeypatch.setenv("SEARCHLITE_TILE_WIDTH", "128")
     # the eviction machinery under test lives in the union wave path
@@ -362,7 +362,7 @@ def test_wave_launch_oom_evicts_and_retries(monkeypatch):
     def flaky(self, *args, **kwargs):
         if fails["left"] > 0:
             fails["left"] -= 1
-            raise RuntimeError("RESOURCE_EXHAUSTED: TPU backend error")
+            raise RuntimeError("RESOURCE_EXHAUSTED: device backend error")
         return orig(self, *args, **kwargs)
 
     monkeypatch.setattr(reader_mod.IndexReader,
@@ -478,7 +478,7 @@ def test_pack_runs_roundtrip():
     [3, r_pad] packing engages iff len fits 16 bits and slot 15."""
     import numpy as np
 
-    from searchlite_tpu.ops.tiles import pack_runs, unpack_runs_np
+    from searchlite.ops.tiles import pack_runs, unpack_runs_np
 
     rng = np.random.default_rng(3)
     n = 37

@@ -4,10 +4,10 @@ profile/explain shapes, candidate_size (parity: reader unit tests,
 
 import pytest
 
-from searchlite_tpu.api.types import IndexOptions, StorageType
-from searchlite_tpu.errors import QueryError
-from searchlite_tpu.index import Index
-from searchlite_tpu.index.manifest import Schema
+from searchlite.api.types import IndexOptions, StorageType
+from searchlite.errors import QueryError
+from searchlite.index import Index
+from searchlite.index.manifest import Schema
 
 
 def make_index(docs):
@@ -126,7 +126,7 @@ class TestRequestKnobs:
     def test_explain_respects_matcher_gating(self):
         """A function_score node whose MATCHER doesn't match the hit
         contributes no function explanations — gating is the matcher
-        tree, not just per-function filters (VERDICT item 10)."""
+        tree, not just per-function filters."""
         index = make_index([
             {"_id": "1", "body": "hello world", "tag": "a"},
             {"_id": "2", "body": "hello there", "tag": "a"},
@@ -151,7 +151,7 @@ class TestRequestKnobs:
         assert fns_2 == []  # matcher-gated: no contribution for doc 2
 
     def test_compiled_plan_cache_survives_commits(self):
-        from searchlite_tpu.api import reader as reader_mod
+        from searchlite.api import reader as reader_mod
 
         index = make_index([{"_id": "1", "body": "hello", "tag": "a"}])
         index.reader().search({"query": "hello world", "limit": 5})
@@ -175,9 +175,9 @@ def test_segment_upload_cache_shared_across_readers():
     """Immutable segments are uploaded once: reopening a reader after an
     add-only commit reuses the old segment's objects; merging a
     tombstone into a segment invalidates just that segment."""
-    from searchlite_tpu.api.types import IndexOptions, StorageType
-    from searchlite_tpu.index import Index
-    from searchlite_tpu.index.manifest import Schema
+    from searchlite.api.types import IndexOptions, StorageType
+    from searchlite.index import Index
+    from searchlite.index.manifest import Schema
 
     index = Index.create(
         IndexOptions(path="", create_if_missing=True,

@@ -5,13 +5,13 @@ import json
 
 import pytest
 
-from searchlite_tpu.api.types import IndexOptions, StorageType
-from searchlite_tpu.errors import SchemaError, SearchliteError
-from searchlite_tpu.index import Index
-from searchlite_tpu.index.manifest import Manifest, Schema
-from searchlite_tpu.index.wal import Wal
-from searchlite_tpu.storage import InMemoryStorage
-from searchlite_tpu.utils import varint
+from searchlite.api.types import IndexOptions, StorageType
+from searchlite.errors import SchemaError, SearchliteError
+from searchlite.index import Index
+from searchlite.index.manifest import Manifest, Schema
+from searchlite.index.wal import Wal
+from searchlite.storage import InMemoryStorage
+from searchlite.utils import varint
 
 
 def mem_options(**kw):

@@ -11,11 +11,11 @@ import random
 import numpy as np
 import pytest
 
-from searchlite_tpu.api.types import IndexOptions, StorageType
-from searchlite_tpu.errors import CursorError, QueryError
-from searchlite_tpu.index import Index
-from searchlite_tpu.index.manifest import Schema
-from searchlite_tpu.models.bm25 import bm25
+from searchlite.api.types import IndexOptions, StorageType
+from searchlite.errors import CursorError, QueryError
+from searchlite.index import Index
+from searchlite.index.manifest import Schema
+from searchlite.models.bm25 import bm25
 
 
 def mem_options(**kw):

@@ -8,9 +8,9 @@ import os
 
 import pytest
 
-from searchlite_tpu.api.types import IndexOptions, StorageType
-from searchlite_tpu.index import Index
-from searchlite_tpu.index.manifest import Schema
+from searchlite.api.types import IndexOptions, StorageType
+from searchlite.index import Index
+from searchlite.index.manifest import Schema
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXAMPLES = sorted(

@@ -14,9 +14,9 @@ import random
 import numpy as np
 import pytest
 
-from searchlite_tpu.api.types import IndexOptions, StorageType
-from searchlite_tpu.index import Index
-from searchlite_tpu.index.manifest import Schema
+from searchlite.api.types import IndexOptions, StorageType
+from searchlite.index import Index
+from searchlite.index.manifest import Schema
 
 
 @pytest.fixture(scope="module")

@@ -12,9 +12,9 @@ import random
 import numpy as np
 import pytest
 
-from searchlite_tpu.api.types import IndexOptions, StorageType
-from searchlite_tpu.index import Index
-from searchlite_tpu.index.manifest import Schema
+from searchlite.api.types import IndexOptions, StorageType
+from searchlite.index import Index
+from searchlite.index.manifest import Schema
 
 VOCAB = [f"w{i}" for i in range(150)]
 
@@ -170,11 +170,11 @@ def test_oversized_corpus_routes_sparse(index, monkeypatch):
 def test_partition_and_subset_shapes():
     """partition_sparse_batch buckets its static shape params and
     subset_impact_batch re-packs a coherent dense qb."""
-    from searchlite_tpu.ops.impact import (
+    from searchlite.ops.impact import (
         build_impact_batch,
         subset_impact_batch,
     )
-    from searchlite_tpu.ops.sparse import partition_sparse_batch
+    from searchlite.ops.sparse import partition_sparse_batch
 
     idx = build_index(seed=30, n_docs=500, segments=1, delete_every=0)
     reader = idx.reader()
@@ -204,7 +204,7 @@ def test_strip_prune_core_certified_rows_exact():
     the documented claim the probe measured."""
     import numpy as np
 
-    from searchlite_tpu.ops.sparse import make_strip_prune_probe
+    from searchlite.ops.sparse import make_strip_prune_probe
     from tools.probe_strip_prune import build_strips, oracle_topk
 
     prune, sort_core = make_strip_prune_probe()

@@ -15,10 +15,10 @@ import random
 import numpy as np
 import pytest
 
-from searchlite_tpu.api.types import IndexOptions, StorageType
-from searchlite_tpu.index import Index
-from searchlite_tpu.index.manifest import Schema
-from searchlite_tpu.ops.sparse import (
+from searchlite.api.types import IndexOptions, StorageType
+from searchlite.index import Index
+from searchlite.index.manifest import Schema
+from searchlite.ops.sparse import (
     OCC_MAX,
     TID_BITS,
     TID_LIMIT,
@@ -118,7 +118,7 @@ def test_packed_fuzz(monkeypatch):
 def test_partition_emits_packed_tids():
     idx = build_index(n_docs=300, segments=1, delete_every=0)
     reader = idx.reader()
-    from searchlite_tpu.ops.impact import build_impact_batch
+    from searchlite.ops.impact import build_impact_batch
 
     seg = reader.segments[0]
     dseg = reader.device_segments[0]
@@ -236,8 +236,8 @@ def test_tiered_wide_narrow_mix(index, monkeypatch):
     explicit, packed = run_both(reader, queries, 10, monkeypatch)
     assert_identical(explicit, packed)
     # and the tiered partition really produced multiple groups
-    from searchlite_tpu.ops.impact import build_impact_batch
-    from searchlite_tpu.ops.sparse import partition_sparse_batch_tiered
+    from searchlite.ops.impact import build_impact_batch
+    from searchlite.ops.sparse import partition_sparse_batch_tiered
 
     seg = reader.segments[0]
     dseg = reader.device_segments[0]

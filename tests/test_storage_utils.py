@@ -2,10 +2,10 @@
 
 import pytest
 
-from searchlite_tpu.errors import StorageError
-from searchlite_tpu.storage import FsStorage, InMemoryStorage
-from searchlite_tpu.utils import varint
-from searchlite_tpu.utils.checksum import crc32
+from searchlite.errors import StorageError
+from searchlite.storage import FsStorage, InMemoryStorage
+from searchlite.utils import varint
+from searchlite.utils.checksum import crc32
 
 
 class TestVarint:

@@ -8,7 +8,7 @@ import urllib.request
 
 import pytest
 
-from searchlite_tpu.cli import main as cli_main
+from searchlite.cli import main as cli_main
 
 SCHEMA = {
     "text_fields": [
@@ -25,7 +25,7 @@ DOCS = [
      "lang": "en", "year": 2023},
     {"_id": "doc-2", "body": "SQLite is a small database engine",
      "lang": "en", "year": 2020},
-    {"_id": "doc-3", "body": "TPUs accelerate dense linear algebra",
+    {"_id": "doc-3", "body": "GPUs accelerate dense linear algebra",
      "lang": "en", "year": 2024},
 ]
 
@@ -130,7 +130,7 @@ class TestCli:
 class TestHttp:
     @pytest.fixture
     def server(self, tmp_path):
-        from searchlite_tpu.http_server import make_server
+        from searchlite.http_server import make_server
 
         server = make_server(str(tmp_path / "idx"), bind="127.0.0.1:0")
         thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -277,7 +277,7 @@ class TestHttpConcurrency:
         a concurrency-limited tower stack; ours is a semaphore)."""
         import concurrent.futures
 
-        from searchlite_tpu.http_server import make_server
+        from searchlite.http_server import make_server
 
         server = make_server(str(tmp_path / "idx"), bind="127.0.0.1:0")
         thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -307,12 +307,12 @@ class TestHttpConcurrency:
 
 
 class TestStructuredBatch:
-    """Structured batched queries across surfaces (VERDICT item 5)."""
+    """Structured batched queries across surfaces."""
 
     def _make_index(self, tmp_path):
-        from searchlite_tpu.api.types import IndexOptions
-        from searchlite_tpu.index import Index
-        from searchlite_tpu.index.manifest import Schema as _S
+        from searchlite.api.types import IndexOptions
+        from searchlite.index import Index
+        from searchlite.index.manifest import Schema as _S
 
         idx = Index.create(
             IndexOptions(path=str(tmp_path / "idx"),
@@ -326,7 +326,7 @@ class TestStructuredBatch:
         import threading as _t
         import urllib.request as _u
 
-        from searchlite_tpu.http_server import make_server
+        from searchlite.http_server import make_server
 
         self._make_index(tmp_path)
         server = make_server(str(tmp_path / "idx"), bind="127.0.0.1:0")
@@ -418,7 +418,7 @@ class TestMeshSurfaces:
     def test_http_mesh(self, tmp_path, index_dir):
         import urllib.request as _u
 
-        from searchlite_tpu.http_server import make_server
+        from searchlite.http_server import make_server
 
         idx = self._build(index_dir)
         server = make_server(str(idx), bind="127.0.0.1:0", mesh="auto")
@@ -438,7 +438,7 @@ class TestMeshSurfaces:
                 ["doc-1", "doc-2"]
             req = _u.Request(
                 f"{base}/search_batch",
-                data=json.dumps({"queries": ["is", "tpus"],
+                data=json.dumps({"queries": ["is", "gpus"],
                                  "limit": 3}).encode(),
                 method="POST",
                 headers={"content-type": "application/json"})

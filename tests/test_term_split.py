@@ -1,4 +1,4 @@
-"""Term-split batched scoring (TPU-native batched WAND) vs the dense
+"""Term-split batched scoring (device-side batched WAND) vs the dense
 path.
 
 ops/sparse.py::_candidate_core_split lets head-term queries ride the
@@ -25,9 +25,9 @@ import random
 import numpy as np
 import pytest
 
-from searchlite_tpu.api.types import IndexOptions, StorageType
-from searchlite_tpu.index import Index
-from searchlite_tpu.index.manifest import Schema
+from searchlite.api.types import IndexOptions, StorageType
+from searchlite.index import Index
+from searchlite.index.manifest import Schema
 
 VOCAB = [f"w{i}" for i in range(150)]
 HEADS = ["head0", "head1", "head2"]
@@ -353,7 +353,7 @@ def test_heavy_lookup_invariant():
                       delete_every=0)
     reader = idx.reader()
     dseg = reader.device_segments[0]
-    from searchlite_tpu.ops.sparse import build_heavy_lookup_host
+    from searchlite.ops.sparse import build_heavy_lookup_host
 
     p = dseg.reader.postings
     hl = build_heavy_lookup_host(p, dseg.block_docs_np,
@@ -429,7 +429,7 @@ def test_chunked_tier_launches_exact(index, monkeypatch):
     """A tiny STRIP_CHUNK_ELEMS forces every tier into multiple
     row-chunked launches (width-sorted row order): results must be
     identical to the unchunked run."""
-    import searchlite_tpu.ops.sparse as sparse_mod
+    import searchlite.ops.sparse as sparse_mod
 
     rng = random.Random(43)
     reader = index.reader()
@@ -471,8 +471,8 @@ def test_subset_qb_stays_packed_eligible(index, monkeypatch):
     eligibility and compiles ONE un-chunked [bl, nblk*128] strip sort
     (192 rows x 6.29M lanes = 18 GB HBM at 5M docs — the round-4
     bench_scale OOM)."""
-    from searchlite_tpu.ops.impact import subset_impact_batch
-    from searchlite_tpu.ops.sparse import _packed_applies
+    from searchlite.ops.impact import subset_impact_batch
+    from searchlite.ops.sparse import _packed_applies
 
     reader = index.reader()
     qbs = []
@@ -485,7 +485,7 @@ def test_subset_qb_stays_packed_eligible(index, monkeypatch):
 
     # the reader imports it function-locally from ops.impact — patch
     # the source module so the call-time lookup resolves to the spy
-    import searchlite_tpu.ops.impact as impact_mod
+    import searchlite.ops.impact as impact_mod
     monkeypatch.setattr(impact_mod, "subset_impact_batch", spy)
     monkeypatch.setenv("SEARCHLITE_TERM_SPLIT", "1")
     monkeypatch.setenv("SEARCHLITE_SPARSE_MAX_BLOCKS", "8")
@@ -508,7 +508,7 @@ def test_subset_qb_stays_packed_eligible(index, monkeypatch):
 def test_full_strip_launch_chunks_rows(index, monkeypatch):
     """The full-strip fallback must honor STRIP_CHUNK_ELEMS: with a
     tiny cap it emits many row-chunked launches and stays exact."""
-    import searchlite_tpu.ops.sparse as sparse_mod
+    import searchlite.ops.sparse as sparse_mod
 
     reader = index.reader()
     queries = [f"head0 w{i}" for i in range(8)] + ["head1 head2"]
@@ -528,7 +528,7 @@ def test_legacy_table_refuses_oversized_launch(index, monkeypatch):
     """When the packed format doesn't apply, the legacy explicit-table
     path must refuse launches past the element cap (the caller falls
     back dense) instead of compiling an HBM-sized sort."""
-    import searchlite_tpu.ops.sparse as sparse_mod
+    import searchlite.ops.sparse as sparse_mod
 
     reader = index.reader()
     queries = [f"w{i} w{i+1} head0" for i in range(0, 12, 2)]

@@ -9,8 +9,8 @@ analysis/uax29.py — not an approximation of it.
 
 import pytest
 
-from searchlite_tpu.analysis.tokenizers import unicode_tokenize
-from searchlite_tpu.analysis.uax29 import unicode_words, word_bounds, words
+from searchlite.analysis.tokenizers import unicode_tokenize
+from searchlite.analysis.uax29 import unicode_words, word_bounds, words
 
 
 def toks(text):

@@ -6,10 +6,10 @@ import math
 import numpy as np
 import pytest
 
-from searchlite_tpu.api.types import IndexOptions, StorageType
-from searchlite_tpu.errors import QueryError
-from searchlite_tpu.index import Index
-from searchlite_tpu.index.manifest import Schema
+from searchlite.api.types import IndexOptions, StorageType
+from searchlite.errors import QueryError
+from searchlite.index import Index
+from searchlite.index.manifest import Schema
 
 
 def make_vector_index(metric="Cosine", docs=None):
@@ -285,8 +285,8 @@ class TestQuantization:
         assert len(set(got) & set(want)) >= 8
 
     def test_int8_matches_numpy_quantized_oracle(self):
-        from searchlite_tpu.ops.vector import quantize_int8, vector_topk
-        from searchlite_tpu.index.segment import VectorData
+        from searchlite.ops.vector import quantize_int8, vector_topk
+        from searchlite.index.segment import VectorData
 
         rng = np.random.default_rng(5)
         vecs = rng.normal(size=(30, 8)).astype(np.float32)
@@ -304,7 +304,7 @@ class TestQuantization:
         np.testing.assert_allclose(scores[0], sims[0][order], rtol=1e-6)
 
     def test_bad_quantization_rejected(self):
-        from searchlite_tpu.errors import SchemaError
+        from searchlite.errors import SchemaError
         with pytest.raises(SchemaError):
             Schema.from_json({"vector_fields": [
                 {"name": "v", "dim": 4, "quantization": "fp4"}]})

@@ -1,9 +1,9 @@
 """MS-MARCO-shaped scale benchmark: ingest + batched QPS at millions of
-docs through the doc-sharded path (VERDICT item 8).
+docs through the doc-sharded path.
 
-MS MARCO passages aren't mounted in this sandbox (tools/msmarco.py is
-ready for when they are), so this generates a synthetic corpus with the
-same shape: ~8.8M passages of ~60 tokens drawn from a Zipf-distributed
+This generates a synthetic corpus with the shape of the MS MARCO
+passages (tools/msmarco.py reads the real collection when it is on
+disk): ~8.8M passages of ~60 tokens drawn from a Zipf-distributed
 vocabulary. Queries mix head and tail terms like the real query log
 (2-6 terms, rank-skewed).
 
@@ -48,21 +48,52 @@ def log(**kv):
     print(json.dumps(kv), flush=True)
 
 
+N_CATS = 16
+
+# the corpus schema: the passage text plus fast fields that filters,
+# aggregations and sorts work on
+SCHEMA = {
+    "text_fields": [{"name": "body", "analyzer": "default",
+                     "stored": False, "indexed": True}],
+    "keyword_fields": [{"name": "cat", "stored": False,
+                        "indexed": False, "fast": True}],
+    "numeric_fields": [{"name": "year", "i64": True, "stored": False,
+                        "fast": True},
+                       {"name": "price", "i64": False, "stored": False,
+                        "fast": True}]}
+
+
+def corpus_model():
+    """(Zipf term probabilities, vocabulary) of the synthetic corpus."""
+    ranks = np.arange(1, VOCAB + 1, dtype=np.float64)
+    probs = (1.0 / ranks) / np.sum(1.0 / ranks)
+    return probs, [f"t{i}" for i in range(VOCAB)]
+
+
+def fast_values(d):
+    """Fast-field values of doc numbers ``d`` (int array): category
+    index (``cat`` is ``f"c{cat}"``), ``year`` and ``price``."""
+    d = np.asarray(d, dtype=np.int64)
+    return d % N_CATS, 1990 + (d * 9) % 35, (d % 997).astype(np.float64)
+
+
 def gen_chunk(rng, probs, vocab, n, base):
+    """Docs ``base .. base+n-1``: 30-120 Zipf-drawn tokens each, plus
+    the fast fields of ``fast_values``."""
     lengths = rng.integers(AVG_LEN // 2, AVG_LEN * 2, size=n)
     toks = rng.choice(VOCAB, size=int(lengths.sum()), p=probs)
+    cats, years, prices = fast_values(np.arange(base, base + n))
     docs = []
     cursor = 0
     for i in range(n):
         ln = int(lengths[i])
-        d = base + i
         docs.append({
-            "_id": str(d),
+            "_id": str(base + i),
             "body": " ".join(vocab[t]
                              for t in toks[cursor:cursor + ln]),
-            # fast fields for the aggregation benchmark
-            "cat": f"c{d % 7}",
-            "price": float(d % 997),
+            "cat": f"c{cats[i]}",
+            "year": int(years[i]),
+            "price": float(prices[i]),
         })
         cursor += ln
     return docs
@@ -98,28 +129,20 @@ def main():
     if force_cpu:
         jax.config.update("jax_platforms", "cpu")
     else:
-        from searchlite_tpu.utils.devguard import guard_backend
+        from searchlite.utils.devguard import guard_backend
 
         guard_backend(__file__)
     log(phase="start", n_docs=n_docs, backend=jax.default_backend())
 
-    from searchlite_tpu.api.types import IndexOptions, StorageType
-    from searchlite_tpu.index import Index
-    from searchlite_tpu.index.manifest import Schema
+    from searchlite.api.types import IndexOptions, StorageType
+    from searchlite.index import Index
+    from searchlite.index.manifest import Schema
 
     rng = np.random.default_rng(7)
-    ranks = np.arange(1, VOCAB + 1, dtype=np.float64)
-    probs = (1.0 / ranks) / np.sum(1.0 / ranks)
-    vocab = [f"t{i}" for i in range(VOCAB)]
+    probs, vocab = corpus_model()
 
     path = args[args.index("--path") + 1] if "--path" in args else ""
-    schema = Schema.from_json({
-        "text_fields": [{"name": "body", "analyzer": "default",
-                         "stored": False, "indexed": True}],
-        "keyword_fields": [{"name": "cat", "stored": False,
-                            "indexed": False, "fast": True}],
-        "numeric_fields": [{"name": "price", "i64": False,
-                            "stored": False, "fast": True}]})
+    schema = Schema.from_json(SCHEMA)
     if path and os.path.exists(os.path.join(path, "MANIFEST.json")):
         index = Index.open(IndexOptions(path=path))
         log(phase="reuse", path=path)
@@ -171,7 +194,7 @@ def main():
                "unit": "qps", "n_docs": n_docs}
 
     if "--cpu-engine" in args:
-        from searchlite_tpu.native import CpuEngine
+        from searchlite.native import CpuEngine
 
         seg = reader.segments[0]
         t0 = time.perf_counter()
@@ -265,7 +288,7 @@ def main():
 
     # aggregation p50 at scale: terms + stats + histogram over the
     # match set of a mid-frequency query (device-side partials vs the
-    # host-collector mask-fetch path — VERDICT r2 item 4)
+    # host-collector mask-fetch path)
     if want_aggs:
         agg_req = {
             "query": queries[0], "limit": 5,
@@ -288,7 +311,7 @@ def main():
             summary[f"agg_p50_ms_{label}"] = round(p50, 1)
         os.environ.pop("SEARCHLITE_DEVICE_AGGS", None)
 
-    # terms WITH a stats sub-agg (VERDICT r4 item 7): the sub-agg doc
+    # terms WITH a stats sub-agg: the sub-agg doc
     # grouping is the owner-sorted vectorized path; this row proves it
     # holds at a multi-M matched set rather than only on test shapes
     if want_aggs:
@@ -309,7 +332,7 @@ def main():
         log(phase="subagg", p50_ms=round(p50, 1))
         summary["subagg_p50_ms"] = round(p50, 1)
 
-    # bounded-memory collectors at scale (VERDICT r3 item 3): t-digest
+    # bounded-memory collectors at scale: t-digest
     # percentiles (match set >> the 4096 exact window) + cardinality
     # with a precision_threshold forced below the field's 997 distinct
     # values, so the HLL sketch path is the one timed
@@ -333,8 +356,7 @@ def main():
         summary["bounded_agg_p50_ms"] = round(p50, 1)
 
     # field-sort p50 at scale: order the same mid-frequency match set
-    # by a numeric fast field (the other half of VERDICT r2 weak #2 —
-    # agg/sort scalability at multi-M docs)
+    # by a numeric fast field
     if want_aggs:
         sort_req = {"query": queries[0], "limit": K,
                     "sort": [{"field": "price", "order": "desc"}]}

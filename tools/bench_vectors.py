@@ -2,7 +2,7 @@
 
 The reference's vector feature is a single-layer HNSW walked serially
 per query (`vectors/hnsw.rs:77-271`, m=16 ef=40); this engine replaces
-it with exact brute-force similarity on the MXU (`ops/vector.py` —
+it with exact brute-force similarity as a matmul (`ops/vector.py` —
 SURVEY §7 sanctions the swap). This bench measures that trade at
 scale: N docs x D dims, batched vector queries (exact top-k) and
 hybrid (BM25 + vector blend) singles.
@@ -37,9 +37,9 @@ def main():
     if force_cpu:
         jax.config.update("jax_platforms", "cpu")
 
-    from searchlite_tpu.api.types import IndexOptions, StorageType
-    from searchlite_tpu.index import Index
-    from searchlite_tpu.index.manifest import Schema
+    from searchlite.api.types import IndexOptions, StorageType
+    from searchlite.index import Index
+    from searchlite.index.manifest import Schema
 
     rng = np.random.default_rng(5)
     vocab = [f"t{i}" for i in range(5000)]

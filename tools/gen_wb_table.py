@@ -1,4 +1,4 @@
-"""Generate searchlite_tpu/analysis/_uax29_tables.py.
+"""Generate searchlite/analysis/_uax29_tables.py.
 
 Extracts the Unicode Word_Break property intervals (plus
 Extended_Pictographic, needed by rule WB3c) from the `regex` module's

@@ -1,4 +1,4 @@
-"""MS MARCO passage benchmark runner (BASELINE.json config 4).
+"""MS MARCO passage benchmark runner (BASELINE.md config 4).
 
 Usage (requires the MS MARCO passage collection on disk — no network):
 
@@ -39,9 +39,9 @@ def main():
         }))
         return 1
 
-    from searchlite_tpu.api.types import IndexOptions, StorageType
-    from searchlite_tpu.index import Index
-    from searchlite_tpu.index.manifest import Schema
+    from searchlite.api.types import IndexOptions, StorageType
+    from searchlite.index import Index
+    from searchlite.index.manifest import Schema
 
     t0 = time.perf_counter()
     index = Index.create(

@@ -21,7 +21,7 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-from searchlite_tpu.utils.devguard import guard_backend  # noqa: E402
+from searchlite.utils.devguard import guard_backend  # noqa: E402
 
 guard_backend(__file__)
 import bench  # noqa: E402
@@ -30,9 +30,9 @@ import bench  # noqa: E402
 def main():
     import jax
 
-    from searchlite_tpu.api.types import IndexOptions, StorageType
-    from searchlite_tpu.index import Index
-    from searchlite_tpu.index.manifest import Schema
+    from searchlite.api.types import IndexOptions, StorageType
+    from searchlite.index import Index
+    from searchlite.index.manifest import Schema
 
     docs = bench.build_docs()
     index = Index.create(
@@ -55,8 +55,8 @@ def main():
     dseg = reader.device_segments[0]
     seg = dseg.reader
 
-    from searchlite_tpu.ops.impact import build_impact_batch
-    from searchlite_tpu.ops.sparse import partition_sparse_batch
+    from searchlite.ops.impact import build_impact_batch
+    from searchlite.ops.sparse import partition_sparse_batch
 
     for rep in range(3):
         tp = td = tf = 0.0

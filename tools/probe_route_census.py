@@ -7,8 +7,8 @@ sort's traffic budget), how many rows fall back to full strips, and
 how those numbers move under different term_cap / ub_ratio knobs.
 
 The point: the 5M batched gap to the C++ BMW baseline is strip-sort
-traffic (BENCH_NOTES "Where the 4.6x goes"), so lane totals ARE the
-cost model — ~2 ms per million lanes on v5e (probe_scale_batch).
+traffic, so lane totals ARE the cost model (probe_scale_batch times
+lanes on the device).
 
 Usage: python tools/probe_route_census.py [--path /root/idx5m]
            [--batch 64] [--nq 1024]
@@ -31,8 +31,8 @@ def log(**kv):
 
 
 def census(dseg, qb, k, max_blocks, term_cap, h_max, ub_ratio):
-    from searchlite_tpu.ops.impact import csr_row_lengths
-    from searchlite_tpu.ops.sparse import (
+    from searchlite.ops.impact import csr_row_lengths
+    from searchlite.ops.sparse import (
         partition_sparse_batch_split,
         partition_sparse_batch_tiered,
     )
@@ -77,7 +77,7 @@ def census(dseg, qb, k, max_blocks, term_cap, h_max, ub_ratio):
                              minlength=nq).astype(np.int64)
     if len(part["heavy_idx"]):
         hb = row_blocks[part["heavy_idx"]]
-        from searchlite_tpu.ops.sparse import pow15_bucket
+        from searchlite.ops.sparse import pow15_bucket
         wide = pow15_bucket(int(hb.max()), minimum=16)
         out["fallback_full_strip_lanes_m"] = round(
             len(hb) * wide * 128 / 1e6, 2)
@@ -104,9 +104,9 @@ def main():
 
     jax.config.update("jax_platforms", "cpu")
 
-    from searchlite_tpu.api.types import IndexOptions
-    from searchlite_tpu.index import Index
-    from searchlite_tpu.ops.impact import build_impact_batch_native
+    from searchlite.api.types import IndexOptions
+    from searchlite.index import Index
+    from searchlite.ops.impact import build_impact_batch_native
     from tools.bench_scale import VOCAB, build_queries
 
     index = Index.open(IndexOptions(path=path))
@@ -121,7 +121,7 @@ def main():
     queries = build_queries(rng, nq, vocab)
 
     # per-row df census of the workload itself
-    from searchlite_tpu.ops.impact import csr_row_lengths
+    from searchlite.ops.impact import csr_row_lengths
 
     qb = build_impact_batch_native(
         seg, dseg, queries, ["body"], reader.analysis, reader.schema,
@@ -156,7 +156,7 @@ def main():
         (2048, 0.5), (2048, 2.0), (2048, 0.0),
         (1024, 0.0), (512, 0.0), (512, 2.0),
     ]
-    from searchlite_tpu.ops.impact import subset_impact_batch
+    from searchlite.ops.impact import subset_impact_batch
 
     for cap, ratio in sweeps:
         tot = None

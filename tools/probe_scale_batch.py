@@ -45,8 +45,8 @@ def main():
     os.environ["SEARCHLITE_HOST_PROFILE"] = "1"
     log(phase="start", backend=jax.default_backend(), path=path)
 
-    from searchlite_tpu.api.types import IndexOptions
-    from searchlite_tpu.index import Index
+    from searchlite.api.types import IndexOptions
+    from searchlite.index import Index
 
     t0 = time.perf_counter()
     index = Index.open(IndexOptions(path=path))

@@ -44,9 +44,9 @@ def main():
 
     jax.config.update("jax_platforms", "cpu")
 
-    from searchlite_tpu.api.types import IndexOptions
-    from searchlite_tpu.index import Index
-    from searchlite_tpu.ops.impact import (build_impact_batch_native,
+    from searchlite.api.types import IndexOptions
+    from searchlite.index import Index
+    from searchlite.ops.impact import (build_impact_batch_native,
                                            csr_row_lengths)
     from tools.bench_scale import VOCAB, build_queries
 

@@ -19,7 +19,7 @@ import time
 
 sys.path.insert(0, ".")
 
-from searchlite_tpu.utils.devguard import guard_backend  # noqa: E402
+from searchlite.utils.devguard import guard_backend  # noqa: E402
 
 guard_backend(__file__)
 
@@ -29,9 +29,9 @@ import bench  # noqa: E402
 
 
 def build_reader():
-    from searchlite_tpu.api.types import IndexOptions, StorageType
-    from searchlite_tpu.index import Index
-    from searchlite_tpu.index.manifest import Schema
+    from searchlite.api.types import IndexOptions, StorageType
+    from searchlite.index import Index
+    from searchlite.index.manifest import Schema
 
     docs = bench.build_docs()
     index = Index.create(

@@ -9,8 +9,8 @@ Answers, per (shape, overselect width C):
     (docs exact, scores to f32 summation-order tolerance)
 
 The prune core only replaces the sort if (time_prune + fail_rate *
-time_sort) < time_sort on REAL hardware — run this on the v5e before
-any reader wiring. Usage:
+time_sort) < time_sort on the device — run this there before any
+reader wiring. Usage:
 
     python tools/probe_strip_prune.py [B] [nblk] [t_pad]
 """
@@ -24,13 +24,13 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
-from searchlite_tpu.utils.devguard import guard_backend  # noqa: E402
+from searchlite.utils.devguard import guard_backend  # noqa: E402
 
 guard_backend(__file__)
 
 import numpy as np  # noqa: E402
 
-import searchlite_tpu  # noqa: E402,F401
+import searchlite  # noqa: E402,F401
 
 
 def build_strips(B: int, nblk: int, t_pad: int, n1: int, seed: int):
@@ -100,10 +100,10 @@ def real_strips(B: int, t_pad: int, seed: int):
     import jax.numpy as jnp
 
     import bench
-    from searchlite_tpu.api.types import IndexOptions, StorageType
-    from searchlite_tpu.index import Index
-    from searchlite_tpu.index.manifest import Schema
-    from searchlite_tpu.ops.sparse import _strip_gather
+    from searchlite.api.types import IndexOptions, StorageType
+    from searchlite.index import Index
+    from searchlite.index.manifest import Schema
+    from searchlite.ops.sparse import _strip_gather
 
     docs = bench.build_docs()
     index = Index.create(
@@ -173,7 +173,7 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from searchlite_tpu.ops.sparse import make_strip_prune_probe
+    from searchlite.ops.sparse import make_strip_prune_probe
 
     prune, sort_core = make_strip_prune_probe()
     if use_real:

@@ -11,7 +11,7 @@ import time
 
 sys.path.insert(0, ".")
 
-from searchlite_tpu.utils.devguard import guard_backend  # noqa: E402
+from searchlite.utils.devguard import guard_backend  # noqa: E402
 
 guard_backend(__file__)
 
@@ -24,10 +24,10 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from searchlite_tpu.api.types import IndexOptions, StorageType
-    from searchlite_tpu.index import Index
-    from searchlite_tpu.index.manifest import Schema
-    from searchlite_tpu.ops.impact import build_impact_batch, build_m
+    from searchlite.api.types import IndexOptions, StorageType
+    from searchlite.index import Index
+    from searchlite.index.manifest import Schema
+    from searchlite.ops.impact import build_impact_batch, build_m
 
     print("devices:", jax.devices(), flush=True)
     t0 = time.perf_counter()
@@ -59,7 +59,7 @@ def main():
         for batch in batches[1:]:
             t1 = time.perf_counter()
             analyzed = []
-            from searchlite_tpu.query.parser import parse_query
+            from searchlite.query.parser import parse_query
             for raw in batch:
                 pairs = []
                 parsed = parse_query(raw)
@@ -114,7 +114,7 @@ def main():
     print(f"shapes: s_pad={s_pad} p_pad={p_pad} nq={nq} n1={n1}",
           flush=True)
 
-    from searchlite_tpu.ops.impact import build_m_from_blocks
+    from searchlite.ops.impact import build_m_from_blocks
 
     blk_idx = jnp.asarray(qb["blk_idx"])
     slot_row = jnp.asarray(qb["slot_row"])

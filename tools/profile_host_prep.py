@@ -27,9 +27,9 @@ import bench  # noqa: E402  (reuses the headline corpus/query builders)
 
 def main():
     docs = bench.build_docs()
-    from searchlite_tpu.api.types import IndexOptions, StorageType
-    from searchlite_tpu.index import Index
-    from searchlite_tpu.index.manifest import Schema
+    from searchlite.api.types import IndexOptions, StorageType
+    from searchlite.index import Index
+    from searchlite.index.manifest import Schema
 
     index = Index.create(
         IndexOptions(path="", create_if_missing=True,
@@ -56,12 +56,12 @@ def main():
     analyzed = reader._analyze_batches([queries], fields)[0]
     t_analyze = time.perf_counter() - t0
 
-    from searchlite_tpu.ops.impact import (
+    from searchlite.ops.impact import (
         build_impact_batch,
         ensure_dense_tables,
         subset_impact_batch,
     )
-    from searchlite_tpu.ops.sparse import partition_sparse_batch
+    from searchlite.ops.sparse import partition_sparse_batch
 
     # stage 2: build_impact_batch (lazy)
     t0 = time.perf_counter()

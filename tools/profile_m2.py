@@ -6,7 +6,7 @@ import time
 
 sys.path.insert(0, ".")
 
-from searchlite_tpu.utils.devguard import guard_backend  # noqa: E402
+from searchlite.utils.devguard import guard_backend  # noqa: E402
 
 guard_backend(__file__)
 

@@ -1,6 +1,6 @@
 """Execution-strategy comparison: bm25 (dense) vs wand vs bmw.
 
-TPU-native counterpart of the reference's strategy demo
+Device-side counterpart of the reference's strategy demo
 (`searchlite-core/examples/pruning.rs:13-204`, surfaced at
 README.md:1017): build a Zipf corpus, run the same query set under
 every execution strategy, and print per-strategy ms/q, scored docs,
@@ -50,9 +50,9 @@ def main():
     # make pruning eligible even for modest corpora
     os.environ.setdefault("SEARCHLITE_PRUNE_MIN_POSTINGS", "1")
 
-    from searchlite_tpu.api.types import IndexOptions, StorageType
-    from searchlite_tpu.index import Index
-    from searchlite_tpu.index.manifest import Schema
+    from searchlite.api.types import IndexOptions, StorageType
+    from searchlite.index import Index
+    from searchlite.index.manifest import Schema
 
     rng = np.random.default_rng(3)
     ranks = np.arange(1, VOCAB + 1, dtype=np.float64)
